@@ -11,14 +11,16 @@ import json
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
-        description="TPU-native DECT NR+ scenario runner")
+        description="DECT NR+ scenario runner")
     ap.add_argument("scenario", help="scenario directory with "
                     "radio.json/phy.json/upper.json")
     ap.add_argument("--ticks", type=int, default=0,
                     help="number of lock-step spp ticks (0 = until ctrl+c)")
     a = ap.parse_args(argv)
 
+    from ..common.jax_cache import enable_compile_cache
     from ..config import build_scenario, load_scenario
+    enable_compile_cache()
     sc = load_scenario(a.scenario)
     run = build_scenario(sc)
     print(f"scenario {sc.name}: {len(run.hws)} node(s), "

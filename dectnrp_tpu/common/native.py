@@ -1,6 +1,6 @@
 """ctypes bindings for the native host runtime (native/dectnrp_rt.cc).
 
-The TPU compute path is JAX/XLA/Pallas; the host-side real-time plumbing —
+The device compute path is JAX/XLA/Pallas; the host-side real-time plumbing —
 IQ ring buffer, MPMC job queue, FIFO token, datagram queues — is C++ like the
 reference's runtime (lib/src/radio/buffer_rx.cpp, phy/pool/job_queue*.cpp,
 phy/pool/token.cpp, application/queue/queue.cpp). The shared library builds

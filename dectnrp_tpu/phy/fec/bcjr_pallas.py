@@ -1,26 +1,30 @@
-"""Fused sliding-window max-log-MAP BCJR as a Pallas TPU kernel.
+"""Sliding-window max-log-MAP BCJR as a Pallas kernel for NVIDIA Hopper.
 
-The XLA formulation (turbo_jax._bcjr_posterior_windowed) materializes the
-branch metrics gamma [B, K+3, 8, 2] plus per-window gathers of them for the
-alpha and the beta scan in HBM — ~0.5 GB per constituent decode at the
-flagship config (K=6144, ~1k codeblocks) and ~30 ms per BCJR pass on v5e.
-This kernel keeps everything on-chip:
+The XLA formulation (turbo_jax._bcjr_posterior_windowed) runs each
+recursion as a `lax.scan` of Lw+D dependent steps, every step a separate
+small kernel over [B, W, 8], and materializes the branch metrics
+gamma [B, K+3, 8, 2] plus per-window gathers of them in device memory.
+This kernel (Pallas through Triton) runs one program per (window w, tile
+of CT codeblock columns):
 
-  * the trellis runs **column-major**: LLR streams are [K+3, B] so codeblocks
-    tile the lane axis and the 8 trellis states live on the sublane axis —
-    each recursion step is a handful of full-width [8, CT] VPU ops;
-  * the grid is (windows W, codeblock tiles); each instance sees three
-    Lw-row blocks of the padded LLR arrays (same array bound three times
-    with shifted index maps = the window's [w*Lw - Lw, (w+2)*Lw) halo), so
-    no windowed gather of the inputs ever exists in HBM;
-  * gammas are recomputed per step from two LLR rows; the branch-metric
-    state patterns are static [8,1] sign masks, so the alpha/beta updates
-    need only the two state permutations of the metric vector (static row
-    concats);
-  * the alpha recursion stores its Lw pre-update metrics in VMEM scratch;
-    the beta recursion runs backward over the same tile and fuses the
-    posterior max-reduction, writing only the [Lw, CT] posterior block;
-  * window validity/initialization derives from program_id — no mask arrays.
+  * LLR streams are column-major [K+3, B], so one step's row load is
+    coalesced across the tile's codeblocks;
+  * the 8 trellis states are 8 [CT] register vectors; the trellis tables
+    are unrolled in Python, so each step is a handful of vector max/adds;
+  * gammas are recomputed per step from the two LLR rows (four distinct
+    values 0.5*(+-Lsys +- Lp)), never stored;
+  * the step loops are not unrolled: unrolling 8 steps cut the kernel time
+    by ~10 % but raised its Triton compile time from ~1 s to ~22 s, paid
+    again for every new (K, B) shape (PERF.md, bring-up findings);
+  * the alpha history (Lw x 8 x CT f32, 512 KB at CT=128) does not fit a
+    block's shared memory, and Triton exposes no scratch, so it spills to
+    a second output that only this program writes and reads back;
+  * the beta recursion runs backward over the same window and fuses the
+    posterior max-reduction, writing only the [Lw, CT] posterior block.
+
+Programs carry no state between each other: window and tile order is free.
+Arithmetic follows the XLA reference step for step (same gamma signs, same
+per-step max normalization, same (alpha + gamma) + beta posterior order).
 
 Reference behavior: lib/src/phy/fec/pdc_enc.cpp:291-430 (srsRAN max-log-MAP
 turbo decode); window acquisition mirrors turbo_jax._bcjr_posterior_windowed,
@@ -32,402 +36,151 @@ from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 _NEG = -1e30
+# codeblock columns per program (a power of two for Triton) and warps per
+# program: CT 32..512 x 1..8 warps all ran within 15 % of each other on the
+# card, measured on an 8-step-unrolled variant (PERF.md, bring-up findings)
+CT = 128
+NUM_WARPS = 4
 
 
-def _luts():
-    # local import to avoid a cycle (turbo_jax imports this module)
+def _tables():
+    # local import to avoid a cycle (turbo_jax imports this module lazily)
     from .turbo_jax import NEXT, OUT_Z, PRED_C, PRED_S
-    return NEXT, OUT_Z, PRED_C, PRED_S
+    pred = tuple((int(PRED_S[s, e]), int(PRED_C[s, e]),
+                  int(OUT_Z[PRED_S[s, e], PRED_C[s, e]]))
+                 for s in range(8) for e in range(2))
+    succ = tuple((int(NEXT[s, c]), int(OUT_Z[s, c]))
+                 for s in range(8) for c in range(2))
+    return pred, succ
 
 
-def _perm_rows(x, perm: tuple[int, ...]):
-    """Row map y[i] = x[perm[i]] for an [8, CT] tile, static perm.
-
-    Static 1-row slices + concat (duplicated-half patterns reuse the half).
-    """
-    half = perm[:4]
-    if perm == half + half:
-        e = jnp.concatenate([x[i:i + 1] for i in half], axis=0)
-        return jnp.concatenate([e, e], axis=0)
-    return jnp.concatenate([x[i:i + 1] for i in perm], axis=0)
+def _gamma(ls, lp):
+    """Branch metrics indexed [input bit c][parity z]: 0.5*(+-ls +- lp)."""
+    pp = 0.5 * (ls + lp)
+    pm = 0.5 * (ls - lp)
+    return ((-pp, -pm), (pm, pp))
 
 
-@lru_cache(maxsize=None)
-def _trellis_signs():
-    """Static per-destination-row gamma signs for the alpha update.
-
-    For destination state s' and predecessor edge j: the branch metric is
-    gamma[p_j(s'), c_j(s')] = 0.5*(sc_j[s'] * Lsys + sz_j[s'] * Lp) with
-    sc = ±1 by the edge's input bit and sz = ±1 by its parity output.
-    """
-    NEXT, OUT_Z, PRED_C, PRED_S = _luts()
-    sc = 2.0 * PRED_C.astype(np.float64) - 1.0                        # [8,2]
-    zz = OUT_Z[PRED_S, PRED_C]                                        # [8,2]
-    sz = 2.0 * zz - 1.0
-    return (tuple(sc[:, 0]), tuple(sz[:, 0]), tuple(sc[:, 1]), tuple(sz[:, 1]),
-            tuple(int(v) for v in PRED_S[:, 0]),
-            tuple(int(v) for v in PRED_S[:, 1]),
-            tuple(int(v) for v in NEXT[:, 0]),
-            tuple(int(v) for v in NEXT[:, 1]))
-
-
-def _row_const(vals):
-    """[8,1] f32 constant built in-kernel from an iota (no captured arrays)."""
-    i8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-    out = jnp.full((8, 1), float(vals[7]), jnp.float32)
-    for i in range(7):
-        out = jnp.where(i8 == i, float(vals[i]), out)
-    return out
+def _vmax(xs):
+    m = xs[0]
+    for x in xs[1:]:
+        m = jnp.maximum(m, x)
+    return m
 
 
 @lru_cache(maxsize=None)
-def _pallas_bcjr_call(Kt: int, Lw: int, D: int, W: int, Bp: int, CT: int,
-                      interpret: bool):
+def _bcjr_call(Kt: int, B: int, Lw: int, D: int, interpret: bool):
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
-    sc0, sz0, sc1, sz1, p0, p1, n0, n1 = _trellis_signs()
-    _, OUT_Z, _, _ = _luts()
-    go0 = tuple(2.0 * OUT_Z[:, 0] - 1.0)   # parity sign of gamma(s, c=0)
-    go1 = tuple(2.0 * OUT_Z[:, 1] - 1.0)
-    T = Lw + 2 * D
-    base = Lw - D            # window steps start at this row of the 3Lw tile
+    K = Kt - 3
+    W = -(-Kt // Lw)
+    NJ = -(-B // CT)
+    pred, succ = _tables()
 
-    def kernel(ls_m, ls_c, ls_p, lp_m, lp_c, lp_p, out_ref, al_ref,
-               ls_all, lp_all):
+    def kernel(ls_ref, lp_ref, post_ref, hist_ref):
         w = pl.program_id(0)
-        csc0, csz0 = _row_const(sc0), _row_const(sz0)
-        csc1, csz1 = _row_const(sc1), _row_const(sz1)
-        cgo0, cgo1 = _row_const(go0), _row_const(go1)
-        i8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-        zero_state = jnp.where(i8 == 0, 0.0, _NEG).astype(jnp.float32)
-        uniform = jnp.zeros((8, 1), jnp.float32)
+        c0 = pl.program_id(1) * CT
+        cols = pl.ds(c0, CT)
+        cmask = c0 + jnp.arange(CT) < B
+        zero = jnp.zeros((CT,), jnp.float32)
+        neg = jnp.full((CT,), _NEG, jnp.float32)
 
-        # stitch the window's halo tile once (VMEM->VMEM block copies)
-        ls_all[0:Lw] = ls_m[:]
-        ls_all[Lw:2 * Lw] = ls_c[:]
-        ls_all[2 * Lw:] = ls_p[:]
-        lp_all[0:Lw] = lp_m[:]
-        lp_all[Lw:2 * Lw] = lp_c[:]
-        lp_all[2 * Lw:] = lp_p[:]
+        def rows(pos):
+            r = jnp.clip(pos, 0, Kt - 1)
+            ls = plgpu.load(ls_ref.at[r, cols], mask=cmask, other=0.0)
+            lp = plgpu.load(lp_ref.at[r, cols], mask=cmask, other=0.0)
+            return ls, lp
 
-        def rows(t):
-            """(Lsys, Lp) rows at window step t of the stitched halo tile."""
-            r = base + t
-            return ls_all[pl.ds(r, 1), :], lp_all[pl.ds(r, 1), :]
+        def alpha_step(a, g, valid):
+            def edge(e):                   # a[pred] + gamma[c][z] of edge e
+                p, c, z = pred[e]
+                return a[p] + g[c][z]
+            new = [jnp.maximum(edge(2 * s), edge(2 * s + 1)) for s in range(8)]
+            m = _vmax(new)
+            return tuple(jnp.where(valid, x - m, y) for x, y in zip(new, a))
 
-        ia = jnp.broadcast_to(
-            jnp.where(w == 0, zero_state, uniform), (8, CT)).astype(jnp.float32)
-        reaches_end = (w + 1) * Lw + D >= Kt
-        ib = jnp.broadcast_to(
-            jnp.where(reaches_end, zero_state, uniform), (8, CT)
-        ).astype(jnp.float32)
+        def beta_step(b, g, valid):
+            new = [jnp.maximum(b[succ[2 * s][0]] + g[0][succ[2 * s][1]],
+                               b[succ[2 * s + 1][0]] + g[1][succ[2 * s + 1][1]])
+                   for s in range(8)]
+            m = _vmax(new)
+            return tuple(jnp.where(valid, x - m, y) for x, y in zip(new, b))
 
-        def alpha_body(t, a):
-            ls, lp = rows(t)
+        def alpha_body(store):
+            def body(t, a):
+                pos = w * Lw - D + t
+                if store:                  # alpha_pos, before its update
+                    for s in range(8):
+                        hist_ref[(t - D) * 8 + s, :] = a[s]
+                valid = (pos >= 0) & (pos < Kt)
+                return alpha_step(a, _gamma(*rows(pos)), valid)
+            return body
 
-            @pl.when(t >= D)
-            def _():
-                al_ref[pl.ds(t - D, 1)] = a[None]
+        def beta_body(emit):
+            def body(t, b):
+                pos = (w + 1) * Lw + D - 1 - t
+                g = _gamma(*rows(pos))
+                if emit:                   # posterior at pos from beta_pos+1
+                    a = [hist_ref[(Lw + D - 1 - t) * 8 + s, :]
+                         for s in range(8)]
+                    hi = _vmax([a[s] + g[1][succ[2 * s + 1][1]]
+                                + b[succ[2 * s + 1][0]] for s in range(8)])
+                    lo = _vmax([a[s] + g[0][succ[2 * s][1]]
+                                + b[succ[2 * s][0]] for s in range(8)])
+                    plgpu.store(post_ref.at[pos, cols], hi - lo,
+                                mask=cmask & (pos < K))
+                valid = (pos >= 0) & (pos < Kt)
+                return beta_step(b, g, valid)
+            return body
 
-            t0 = 0.5 * (csc0 * ls + csz0 * lp)
-            t1 = 0.5 * (csc1 * ls + csz1 * lp)
-            upd = jnp.maximum(_perm_rows(a, p0) + t0, _perm_rows(a, p1) + t1)
-            pos = w * Lw - D + t
-            valid = (pos >= 0) & (pos < Kt)
-            return jnp.where(valid, upd, a)
+        # window 0 starts in state 0, the others uniform (acquisition)
+        a = (zero,) + tuple(jnp.where(w == 0, neg, zero) for _ in range(7))
+        a = jax.lax.fori_loop(0, D, alpha_body(False), a)
+        jax.lax.fori_loop(D, D + Lw, alpha_body(True), a)
 
-        jax.lax.fori_loop(0, D + Lw, alpha_body, ia)
-
-        def beta_body(r, b):
-            t = T - 1 - r
-            ls, lp = rows(t)
-            g0 = 0.5 * (-ls + cgo0 * lp)
-            g1 = 0.5 * (ls + cgo1 * lp)
-            bs0 = _perm_rows(b, n0)                                  # b[nxt[s,0]]
-            bs1 = _perm_rows(b, n1)
-
-            @pl.when((t >= D) & (t < D + Lw))
-            def _():
-                k = t - D
-                ak = al_ref[pl.ds(k, 1)][0]
-                hi = jnp.max(ak + g1 + bs1, axis=0, keepdims=True)
-                lo = jnp.max(ak + g0 + bs0, axis=0, keepdims=True)
-                out_ref[pl.ds(k, 1), :] = hi - lo
-
-            upd = jnp.maximum(bs0 + g0, bs1 + g1)
-            pos = w * Lw - D + t
-            valid = (pos >= 0) & (pos < Kt)
-            return jnp.where(valid, upd, b)
-
-        jax.lax.fori_loop(0, T, beta_body, ib)
-
-    grid = (W, Bp // CT)
-
-    def mk_spec(dw):
-        return pl.BlockSpec((Lw, CT), lambda i, j, dw=dw: (i + dw, j))
+        ends = (w + 1) * Lw + D >= Kt
+        b = (zero,) + tuple(jnp.where(ends, neg, zero) for _ in range(7))
+        b = jax.lax.fori_loop(0, D, beta_body(False), b)
+        jax.lax.fori_loop(D, D + Lw, beta_body(True), b)
 
     return pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[mk_spec(0), mk_spec(1), mk_spec(2),
-                  mk_spec(0), mk_spec(1), mk_spec(2)],
-        out_specs=pl.BlockSpec((Lw, CT), lambda i, j: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((W * Lw, Bp), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((Lw, 8, CT), jnp.float32),
-                        pltpu.VMEM((3 * Lw, CT), jnp.float32),
-                        pltpu.VMEM((3 * Lw, CT), jnp.float32)],
+        grid=(W, NJ),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 2,
+        out_specs=(pl.BlockSpec(memory_space=pl.ANY),
+                   pl.BlockSpec((Lw * 8, CT), lambda i, j: (i, j))),
+        out_shape=(jax.ShapeDtypeStruct((K, B), jnp.float32),
+                   jax.ShapeDtypeStruct((W * Lw * 8, NJ * CT), jnp.float32)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
+        name="bcjr_window",
     )
 
 
-@lru_cache(maxsize=None)
-def _pallas_bcjr_call_bf16(Kt: int, Lw: int, D: int, W: int, Bp: int,
-                           CT: int, interpret: bool):
-    """Sublane-PACKED bf16 variant: two column groups share one native tile.
+def bcjr_posterior_gpu_cm(Lsys, Lp, K: int, Lw: int = 128, D: int = 32,
+                          interpret: bool = False):
+    """Column-major windowed BCJR: Lsys, Lp [K+3, B] -> posterior [K, B].
 
-    NEGATIVE RESULT (r05, measured on v5e silicon): numerically correct
-    (block-error rates statistically identical to f32 at the turbo
-    waterfall edge; bit-exact on clean LLRs) but SLOWER than the f32
-    kernel — 9.8 vs 2.7 ms at Bc=512, 28.0 vs 20.6 ms at Bc=2688 for 2
-    iterations. Mosaic does not execute [16, CT] bf16 elementwise ops at
-    2 elements/cycle on this target (it widens to f32 lanes), so the
-    packing only adds gamma-duplication and renormalization work. Kept as
-    a correct, interpret-testable second implementation and as the
-    measured record of why the f32 kernel stays the default.
-
-    Design, for the record: the f32 kernel's state arrays are [8, CT] —
-    half of a bf16 native tile's 16 sublanes. Packing TWO independent
-    CT-column groups as rows 0-7 / 8-15 of a [16, CT] bf16 array would
-    cover 2x the codeblocks per native tile op if bf16 packed. Metrics
-    renormalize every 4 trellis steps (subtract each half's state-0 row)
-    so bf16's 8-bit mantissa keeps the metric spread resolvable
-    (unnormalized path metrics grow to ~300 where the bf16 ulp is 2.0);
-    the posterior max-difference cancels the common offsets exactly, so
-    only per-pass posterior quantization (~0.25 at LLR scale) remains,
-    and the extrinsic accumulation outside the kernel stays f32.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    sc0, sz0, sc1, sz1, p0, p1, n0, n1 = _trellis_signs()
-    _, OUT_Z, _, _ = _luts()
-    go0 = tuple(2.0 * OUT_Z[:, 0] - 1.0)
-    go1 = tuple(2.0 * OUT_Z[:, 1] - 1.0)
-    T = Lw + 2 * D
-    base = Lw - D
-    assert T % 4 == 0 and (D + Lw) % 4 == 0
-    p0_16 = p0 + tuple(i + 8 for i in p0)
-    p1_16 = p1 + tuple(i + 8 for i in p1)
-    n0_16 = n0 + tuple(i + 8 for i in n0)
-    n1_16 = n1 + tuple(i + 8 for i in n1)
-    half0 = (0,) * 8 + (8,) * 8          # per-half state-0 broadcast
-
-    def kernel(ls_m, ls_c, ls_p, lp_m, lp_c, lp_p, out_ref, al_ref,
-               ls_a, ls_b, lp_a, lp_b):
-        w = pl.program_id(0)
-        csc0, csz0 = _row_const(sc0), _row_const(sz0)
-        csc1, csz1 = _row_const(sc1), _row_const(sz1)
-        cgo0, cgo1 = _row_const(go0), _row_const(go1)
-        i8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-        zero_state = jnp.where(i8 == 0, 0.0, _NEG).astype(jnp.float32)
-        uniform = jnp.zeros((8, 1), jnp.float32)
-
-        # stitch per HALF (lane-sliced block copies happen once here —
-        # per-step lane slices of a [1, 2CT] row produce vpad'ed vectors
-        # Mosaic cannot broadcast, the r05 compile failure)
-        for dst, src in ((ls_a, (ls_m, ls_c, ls_p)),
-                         (lp_a, (lp_m, lp_c, lp_p))):
-            dst[0:Lw] = src[0][:, :CT]
-            dst[Lw:2 * Lw] = src[1][:, :CT]
-            dst[2 * Lw:] = src[2][:, :CT]
-        for dst, src in ((ls_b, (ls_m, ls_c, ls_p)),
-                         (lp_b, (lp_m, lp_c, lp_p))):
-            dst[0:Lw] = src[0][:, CT:]
-            dst[Lw:2 * Lw] = src[1][:, CT:]
-            dst[2 * Lw:] = src[2][:, CT:]
-
-        def gammas(t):
-            """(g0, g1) bf16 [16, CT] for both packed halves at step t."""
-            r = base + t
-            lsa = ls_a[pl.ds(r, 1), :]                    # [1, CT] f32
-            lsb = ls_b[pl.ds(r, 1), :]
-            lpa = lp_a[pl.ds(r, 1), :]
-            lpb = lp_b[pl.ds(r, 1), :]
-            g0 = jnp.concatenate(
-                [0.5 * (csc0 * lsa + csz0 * lpa),
-                 0.5 * (csc0 * lsb + csz0 * lpb)], axis=0)
-            g1 = jnp.concatenate(
-                [0.5 * (csc1 * lsa + csz1 * lpa),
-                 0.5 * (csc1 * lsb + csz1 * lpb)], axis=0)
-            return g0.astype(jnp.bfloat16), g1.astype(jnp.bfloat16)
-
-        def gammas_out(t):
-            """Beta/posterior branch metrics (parity-sign form)."""
-            r = base + t
-            lsa = ls_a[pl.ds(r, 1), :]
-            lsb = ls_b[pl.ds(r, 1), :]
-            lpa = lp_a[pl.ds(r, 1), :]
-            lpb = lp_b[pl.ds(r, 1), :]
-            g0 = jnp.concatenate(
-                [0.5 * (-lsa + cgo0 * lpa),
-                 0.5 * (-lsb + cgo0 * lpb)], axis=0)
-            g1 = jnp.concatenate(
-                [0.5 * (lsa + cgo1 * lpa),
-                 0.5 * (lsb + cgo1 * lpb)], axis=0)
-            return g0.astype(jnp.bfloat16), g1.astype(jnp.bfloat16)
-
-        def renorm(a):
-            return a - _perm_rows(a, half0)
-
-        init8 = jnp.where(w == 0, zero_state, uniform)
-        ia = jnp.broadcast_to(jnp.concatenate([init8, init8], axis=0),
-                              (16, CT)).astype(jnp.bfloat16)
-        reaches_end = (w + 1) * Lw + D >= Kt
-        iend8 = jnp.where(reaches_end, zero_state, uniform)
-        ib = jnp.broadcast_to(jnp.concatenate([iend8, iend8], axis=0),
-                              (16, CT)).astype(jnp.bfloat16)
-
-        def alpha_step(t, a):
-            @pl.when(t >= D)
-            def _():
-                al_ref[pl.ds(t - D, 1)] = a[None]
-            g0, g1 = gammas(t)
-            upd = jnp.maximum(_perm_rows(a, p0_16) + g0,
-                              _perm_rows(a, p1_16) + g1)
-            pos = w * Lw - D + t
-            valid = (pos >= 0) & (pos < Kt)
-            return jnp.where(valid, upd, a)
-
-        def alpha4(i, a):
-            t = i * 4
-            for k in range(4):
-                a = alpha_step(t + k, a)
-            return renorm(a)
-
-        jax.lax.fori_loop(0, (D + Lw) // 4, alpha4, ia)
-
-        def beta_step(t, b):
-            g0, g1 = gammas_out(t)
-            bs0 = _perm_rows(b, n0_16)
-            bs1 = _perm_rows(b, n1_16)
-
-            @pl.when((t >= D) & (t < D + Lw))
-            def _():
-                k = t - D
-                ak = al_ref[pl.ds(k, 1)][0]               # [16, CT] bf16
-                e1 = (ak + g1 + bs1).astype(jnp.float32)
-                e0 = (ak + g0 + bs0).astype(jnp.float32)
-                hi_a = jnp.max(e1[:8], axis=0, keepdims=True)
-                hi_b = jnp.max(e1[8:], axis=0, keepdims=True)
-                lo_a = jnp.max(e0[:8], axis=0, keepdims=True)
-                lo_b = jnp.max(e0[8:], axis=0, keepdims=True)
-                out_ref[pl.ds(k, 1), :] = jnp.concatenate(
-                    [hi_a - lo_a, hi_b - lo_b], axis=1)
-            upd = jnp.maximum(bs0 + g0, bs1 + g1)
-            pos = w * Lw - D + t
-            valid = (pos >= 0) & (pos < Kt)
-            return jnp.where(valid, upd, b)
-
-        def beta4(i, b):
-            t4 = T - 4 - i * 4
-            for k in range(3, -1, -1):
-                b = beta_step(t4 + k, b)
-            return renorm(b)
-
-        jax.lax.fori_loop(0, T // 4, beta4, ib)
-
-    grid = (W, Bp // (2 * CT))
-
-    def mk_spec(dw):
-        return pl.BlockSpec((Lw, 2 * CT), lambda i, j, dw=dw: (i + dw, j))
-
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[mk_spec(0), mk_spec(1), mk_spec(2),
-                  mk_spec(0), mk_spec(1), mk_spec(2)],
-        out_specs=pl.BlockSpec((Lw, 2 * CT), lambda i, j: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((W * Lw, Bp), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((Lw, 16, CT), jnp.bfloat16),
-                        pltpu.VMEM((3 * Lw, CT), jnp.float32),
-                        pltpu.VMEM((3 * Lw, CT), jnp.float32),
-                        pltpu.VMEM((3 * Lw, CT), jnp.float32),
-                        pltpu.VMEM((3 * Lw, CT), jnp.float32)],
-        interpret=interpret,
-    )
-
-
-def _col_tile(B: int, Lw: int) -> tuple[int, int]:
-    """(CT, Bp): lane-tile width and padded column count.
-
-    Total native-tile work is Bp/128 regardless of CT, but each sequential
-    trellis step also pays a constant per-grid-cell overhead (loop
-    control, dynamic-slice addressing) that amortizes over CT — measured
-    c ~ 2.45 native-tile-equivalents per step (tools/probe_bcjr_ct.py:
-    B=1408 runs 1.96x FASTER padded to 1536 so CT=512 instead of 128).
-    Minimize (Bp/CT) * (CT/128 + c) over the VMEM-feasible CTs, padding B
-    up to the chosen multiple; padded columns are zero LLRs and the
-    caller slices them away. Cap up to CT=1024 (VMEM at Lw=128: ~4.2 MB
-    alpha scratch + ~3.1 MB halo tiles + IO blocks ~ 11 MB, fits the
-    16 MB budget; r05 probe: 2688 cols at CT=896 runs 15% faster than at
-    384, 1408 at CT=768/Bp=1536 2.3x faster than the old CT=128).
-    """
-    cap = max(128, min(1024, (200_000 // Lw) // 128 * 128))
-    best = None
-    for ct in range(cap, 127, -128):
-        bp = -(-B // ct) * ct
-        cost = (bp // ct) * (ct / 128.0 + 2.45)
-        if best is None or cost < best[0]:
-            best = (cost, ct, bp)
-    return best[1], best[2]
-
-
-def _col_tile_packed(B: int, Lw: int) -> tuple[int, int]:
-    """(CT, Bp) for the bf16-packed kernel (2*CT columns per grid cell)."""
-    best = None
-    for ct in (512, 384, 256, 128):
-        bp = -(-B // (2 * ct)) * (2 * ct)
-        cost = (bp // (2 * ct)) * (2 * ct / 256.0 + 2.45)
-        if best is None or cost < best[0]:
-            best = (cost, ct, bp)
-    return best[1], best[2]
-
-
-def bcjr_posterior_pallas_cm(Lsys, Lp, K: int, Lw: int = 128, D: int = 32,
-                             interpret: bool = False, bf16: bool = False):
-    """Column-major fused BCJR: Lsys, Lp [K+3, B] -> posterior [K, B].
-
-    Lsys must already include the a-priori term (Ls + La) on the first K rows.
-    bf16=True uses the sublane-packed bf16 kernel (2 column groups per
-    native tile, ~2x ALU density; posterior quantization ~0.25 LLR).
+    Lsys must already include the a-priori term (Ls + La) on the first K
+    rows. `interpret` runs the kernel through the Pallas interpreter (CPU
+    tests only).
     """
     Kt, B = Lsys.shape
     assert Kt == K + 3
-    W = -(-Kt // Lw)
-    if bf16:
-        CT, Bp = _col_tile_packed(B, Lw)
-        call = _pallas_bcjr_call_bf16(Kt, Lw, D, W, Bp, CT, interpret)
-    else:
-        CT, Bp = _col_tile(B, Lw)
-        call = _pallas_bcjr_call(Kt, Lw, D, W, Bp, CT, interpret)
-
-    def prep(x):
-        x = x.astype(jnp.float32)
-        return jnp.pad(x, ((Lw, (W + 1) * Lw - Kt), (0, Bp - B)))
-
-    ls, lp = prep(Lsys), prep(Lp)
-    post = call(ls, ls, ls, lp, lp, lp)                    # [W*Lw, Bp]
-    return post[:K, :B]
+    call = _bcjr_call(Kt, B, Lw, D, interpret)
+    post, _ = call(Lsys.astype(jnp.float32), Lp.astype(jnp.float32))
+    return post
 
 
-def bcjr_posterior_pallas(Ls, Lp, La, K: int, Lw: int = 128, D: int = 32,
-                          interpret: bool = False):
+def bcjr_posterior_gpu(Ls, Lp, La, K: int, Lw: int = 128, D: int = 32,
+                       interpret: bool = False):
     """Row-major adapter: Ls/Lp [B, K+3], La [B, K] -> posterior [B, K]."""
     Lsys = (Ls + jnp.pad(La, ((0, 0), (0, 3)))).astype(jnp.float32)
-    post = bcjr_posterior_pallas_cm(Lsys.T, Lp.astype(jnp.float32).T, K,
-                                    Lw=Lw, D=D, interpret=interpret)
+    post = bcjr_posterior_gpu_cm(Lsys.T, Lp.astype(jnp.float32).T, K,
+                                 Lw=Lw, D=D, interpret=interpret)
     return post.T.astype(Ls.dtype)

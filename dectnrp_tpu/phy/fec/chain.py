@@ -145,8 +145,8 @@ def _pdc_global_inv(plan: PdcPlan, network_id: int, plcf_type: int, rv: int):
     """Static INVERSE of _pdc_global_sel: per padded-d position, the
     e-indices that de-rate-match into it.
 
-    Turns the RX-side scatter-add (XLA lowers arbitrary-index scatter
-    poorly on TPU — measured ~26 ms of the 50 ms u8b16 B=128 decode) into
+    Turns the RX-side scatter-add (arbitrary-index scatter, which XLA
+    lowers far slower than gathers over the same static map) into
     `m_max` fused gathers: inv[m, j] = m-th e-index feeding d position j,
     padded with the sentinel G (a zero LLR slot appended by the caller).
     m_max = 1 whenever E <= 3 Kp per codeblock (pure puncturing, the
@@ -255,10 +255,8 @@ def pdc_dematch(e_llr: jax.Array, plan: PdcPlan, network_id: int,
     llr = e_llr * (1.0 - 2.0 * jnp.asarray(scr, dtype=e_llr.dtype))[None, :]
     B = e_llr.shape[0]
     # de-rate-match as STATIC inverse gathers (m_max of them; soft combining
-    # of repeated positions = their sum), then slice per-K groups. The
-    # scatter-add formulation this replaces cost ~26 ms of the 50 ms u8b16
-    # B=128 decode step — XLA's TPU lowering of arbitrary-index scatter is
-    # far slower than the equivalent gathers over the same static map.
+    # of repeated positions = their sum), then slice per-K groups (gathers
+    # over a static map instead of an arbitrary-index scatter-add).
     inv, Kp = _pdc_global_inv(plan, network_id, plcf_type, rv)
     C = len(plan.cb_K)
     llr_pad = jnp.concatenate(

@@ -51,25 +51,11 @@ NEXT, OUT_Z, PRED_S, PRED_C = _build_trellis()
 _NEG = -1e30
 
 
-def _rev0(x):
-    """Reverse the leading axis via a static gather.
-
-    XLA:TPU miscompiles the `rev` HLO on the leading axis of large scan
-    outputs at some (non-power-of-2 batch) shapes — observed as silently
-    corrupted beta metrics for batch >= ~576 at K=6144 (frac 30% of the
-    posterior off by >1). A static-index gather lowers to a different
-    (correct) emitter. Keep every leading-axis reverse in this module on
-    this path.
-    """
-    idx = jnp.asarray(np.arange(x.shape[0])[::-1].copy())
-    return jnp.take(x, idx, axis=0)
-
-
 # ------------------------------------------------------------------- encoder
 
 @lru_cache(maxsize=None)
 def _rsc_linear_luts(K: int, n: int = 512):
-    """Blocked GF(2) state-space form of the RSC for MXU-friendly encoding.
+    """Blocked GF(2) state-space form of the RSC for matmul encoding.
 
     The RSC is a linear system over GF(2): s_{k+1} = A s_k + B c_k,
     z_k = C s_k + D' c_k. For blocks of n inputs this yields
@@ -120,8 +106,8 @@ def _rsc_linear_luts(K: int, n: int = 512):
 def _rsc_encode_linear(bits: jax.Array, K: int):
     """RSC via blocked GF(2) matmuls: bits [B,K] -> (z [B,K], xt, zt [B,3]).
 
-    MXU path replacing the K-step lax.scan (which dominated TX time on TPU:
-    ~144 ms at K=6k batch 1k vs ~1 ms here).
+    Matmul path replacing the K-step lax.scan: blocks of n bits are one
+    product each, only the nb-step state chain stays sequential.
     """
     nb, H, G, Mc, An, tail = _rsc_linear_luts(K)
     n = K // nb
@@ -156,7 +142,7 @@ def _rsc_encode_linear(bits: jax.Array, K: int):
 
 @partial(jax.jit, static_argnames=("K",))
 def turbo_encode_scan(c: jax.Array, K: int) -> jax.Array:
-    """Per-bit lax.scan encoder: the bit-exact oracle for the MXU path.
+    """Per-bit lax.scan encoder: the bit-exact oracle for the matmul path.
 
     Same interface/output as turbo_encode; kept as the correctness reference
     (tests assert turbo_encode == turbo_encode_scan) and for tiny K where the
@@ -196,10 +182,11 @@ def turbo_encode_scan(c: jax.Array, K: int) -> jax.Array:
 def turbo_encode(c: jax.Array, K: int) -> jax.Array:
     """Encode bits [B, K] (uint8/int32) -> d streams [B, 3, K+4].
 
-    MXU path: both constituent RSC encoders run as blocked GF(2) matmuls
-    (_rsc_encode_linear) instead of a K-step lax.scan — ~144 ms -> ~1 ms at
-    K=6144, batch ~1k on v5e. Tail-bit layout matches turbo_np.turbo_encode
-    (36.212 5.1.3.2.2); bit-exactness vs turbo_encode_scan is asserted by
+    Matmul path: both constituent RSC encoders run as blocked GF(2) matmuls
+    (_rsc_encode_linear) instead of a K-step lax.scan. The 0/1 operands and
+    integer sums < 2^24 are exact in float32 and in TF32 (chip_smoke.py's
+    gf2_exact phase checks this on the card). Tail-bit layout matches
+    turbo_np.turbo_encode (36.212 5.1.3.2.2); bit-exactness vs turbo_encode_scan is asserted by
     tests/test_fec_turbo.py.
     """
     pi = jnp.asarray(interleaver(K))
@@ -269,8 +256,8 @@ def _bcjr_posterior(Ls, Lp, La, K):
         bnew = bnew - jnp.max(bnew, axis=-1, keepdims=True)
         return bnew, b
 
-    _, betas_rev = jax.lax.scan(beta_step, init, _rev0(gamma_t))
-    betas = _rev0(betas_rev)                                # betas[k] = beta at step k+1
+    _, betas = jax.lax.scan(beta_step, init, gamma_t, reverse=True)
+    # betas[k] = beta at step k+1
 
     # posterior over info bits only (first K steps)
     a_k = jnp.moveaxis(alphas[:K], 0, 1)                    # [B,K,8]
@@ -361,8 +348,6 @@ def _bcjr_posterior_windowed(Ls, Lp, La, K, Lw=128, D=32):
     betas = betas[D:]                                                 # [Lw,B,W,8]
     # recorded at scan step t: beta_{pos_b[t]+1}; body slice t in [D,D+Lw)
     # covers pos (w+1)*Lw-1 .. w*Lw, i.e. beta indices in descending order.
-    # flip AFTER moveaxis (axis 2, non-leading): leading-axis rev here hits
-    # the XLA:TPU miscompile documented at _rev0.
     b_k1 = jnp.flip(jnp.moveaxis(betas, 0, 2), axis=2).reshape(
         B, W * Lw, 8)[:, :K]
 
@@ -374,29 +359,29 @@ def _bcjr_posterior_windowed(Ls, Lp, La, K, Lw=128, D=32):
 
 
 def _resolve_bcjr(K: int, window: int | None, impl: str):
-    """Pick the BCJR engine: fused Pallas kernel on TPU, XLA elsewhere.
+    """Pick the BCJR engine: the Pallas kernel on a GPU, XLA elsewhere.
 
-    impl: "auto" (pallas for windowed decode on a TPU backend, XLA
-    otherwise), "xla", "pallas", "pallas_bf16" (sublane-packed bf16
-    kernel), or "pallas_interpret"/"pallas_bf16_interpret" (CPU-debuggable
-    kernel paths).
+    impl: "auto" ("gpu" for windowed decode when the default backend is a
+    GPU, "xla" otherwise), "xla", or "gpu" (bcjr_pallas, compiled; a
+    compile failure raises, there is no fallback).
     Returns (kind, bcjr): kind "cm" = column-major fn(Lsys [K+3,B], Lp) ->
     post [K,B]; kind "rm" = row-major fn(Ls, Lp, La, K) -> post [B,K].
     """
     if window is None:
         window = 128 if K >= 512 else 0
     if impl == "auto":
-        impl = ("pallas" if window and jax.default_backend() == "tpu"
-                else "xla")
+        impl = "gpu" if window and jax.default_backend() == "gpu" else "xla"
     if impl == "xla":
         if window:
             return "rm", partial(_bcjr_posterior_windowed, Lw=window, D=32)
         return "rm", _bcjr_posterior
-    from .bcjr_pallas import bcjr_posterior_pallas_cm
-    assert window, "pallas BCJR requires windowed mode (K >= 512)"
-    return "cm", partial(bcjr_posterior_pallas_cm, K=K, Lw=window, D=32,
-                         interpret=impl.endswith("_interpret"),
-                         bf16=impl.startswith("pallas_bf16"))
+    if impl != "gpu":
+        raise ValueError(f"unknown BCJR impl {impl!r}")
+    from .bcjr_pallas import bcjr_posterior_gpu_cm
+    if not window:
+        raise ValueError("the GPU BCJR kernel needs windowed mode (K >= 512)")
+    return "cm", partial(bcjr_posterior_gpu_cm, K=K, Lw=window, D=32,
+                         interpret=False)
 
 
 def _llr_streams(d_llr, K: int):
@@ -414,7 +399,7 @@ def _llr_streams(d_llr, K: int):
 def _make_iter(d_llr, K: int, kind: str, bcjr):
     """Build (one_iter(La1) -> (La1_next, Lpost_deinterleaved), La1_0).
 
-    kind "cm": all state is column-major [K(+3), B] — the Pallas kernel's
+    kind "cm": all state is column-major [K(+3), B] — the GPU kernel's
     native layout, so iterations run transpose-free; the caller transposes
     the final posterior once. kind "rm": row-major [B, K] (XLA path).
     """

@@ -88,8 +88,7 @@ def reports_from_cells(cells: np.ndarray, N_TS: int = 1,
     B, R, T, _ = cells.shape
     if (N_TS, T) not in CODEBOOK_SIZES:
         return [MimoReport(0, 0.0, N_TS, T) for _ in range(B)]
-    from ..common.cplx import cwrap_cached
-    idx, metric = cwrap_cached(_search_fn(N_TS, T))(cells)
+    idx, metric = (np.asarray(v) for v in _search_fn(N_TS, T)(cells))
     return [MimoReport(int(idx[i]), float(metric[i]), N_TS, T)
             for i in range(B)]
 

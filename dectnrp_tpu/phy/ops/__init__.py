@@ -1,42 +1,14 @@
-"""Pallas TPU kernels for the PHY hot ops + XLA reference paths.
-
-Each op ships three interchangeable implementations:
-  * a plain-XLA reference (runs everywhere, used by the CPU test mesh),
-  * an MXU-shaped XLA formulation (better tiling, still portable),
-  * a fused Pallas TPU kernel (VMEM-resident window construction, one HBM
-    read + one HBM write = speed-of-light bandwidth).
-
-`use_pallas()` gates the kernel path to real TPU backends; tests exercise the
-kernels via `interpret=True` on CPU.
-"""
+"""Portable XLA formulations of PHY hot ops (polyphase super-frame FIR)."""
 from __future__ import annotations
 
-import jax
-
-
-def use_pallas() -> bool:
-    """True when the default backend is a real TPU (Pallas-compilable)."""
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # backend init failure -> stay portable
-        return False
-
-
-from .polyphase import (  # noqa: E402
-    AlignedDesign,
+from .polyphase import (
     SuperframeDesign,
-    make_aligned_design,
     make_superframe_design,
-    polyphase_fir_pallas,
     polyphase_fir_xla,
 )
 
 __all__ = [
-    "use_pallas",
-    "AlignedDesign",
-    "make_aligned_design",
     "SuperframeDesign",
     "make_superframe_design",
     "polyphase_fir_xla",
-    "polyphase_fir_pallas",
 ]

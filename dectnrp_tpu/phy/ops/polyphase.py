@@ -1,31 +1,19 @@
-"""Polyphase fractional-resampler FIR as an MXU super-frame matmul.
+"""Polyphase fractional-resampler FIR as one super-frame matmul.
 
 The reference resampler (lib/src/phy/resample/resampler.cpp:267-454) walks the
 input sample-by-sample through hand-unrolled SIMD subfilter schedules.  The
-basic TPU formulation (phy/resampler.py) turns each group of L outputs into a
-row of a [n_frames, W] x [W, L] matmul — but W~31 and L~10 leave the 128x128
-MXU almost idle and the strided window gather materializes a W/M ~ 3.4x blowup
-of the input in HBM.
+basic formulation (phy/resampler.py "gather") turns each group of L outputs
+into a row of a [n_frames, W] x [W, L] matmul, whose strided window gather
+materializes a W/M ~ 3.4x blowup of the input in device memory.
 
 This module packs S consecutive frames into one "super-frame" row:
 
     y[b, g*S*L + n] = sum_w  x[b, g*S*M + w] * Gbig[w, n]
 
 with Gbig [S*M + E, S*L] the block-Toeplitz embedding of the L polyphase
-subfilters (E = W - M extra overlap columns).  Two implementations:
-
-  * `polyphase_fir_xla`: window construction by reshape + 2 static slices +
-    concat (no gather HLO), then one einsum.  Portable.
-  * `polyphase_fir_pallas`: fused Pallas kernel.  Mosaic requires every
-    BlockSpec's last block dim to be a multiple of 128 (round-1 version
-    violated this: blocks like (128, 468) fail to lower on real TPU), so the
-    aligned design stores each super-frame's S*M input samples at a
-    128-aligned stride mp = ceil128(S*M) and pads the S*L outputs to
-    sop = ceil128(S*L).  The filter matrix Gp [mp + Eh, sop] absorbs both
-    paddings (zero rows/cols) plus the halo layout: taps that spill into the
-    next super-frame live at rows mp..mp+E.  Each grid step reads one
-    contiguous aligned tile plus one aligned halo block (the same array bound
-    twice with shifted index maps) and writes only aligned output tiles.
+subfilters (E = W - M extra overlap columns). `polyphase_fir_xla` builds the
+windows by reshape + 2 static slices + concat (no gather HLO), then runs one
+einsum.
 
 Real filter taps on complex IQ: callers split complex64 into stacked
 real/imag float32 rows (see `split_complex_rows` / `merge_complex_rows`).
@@ -34,15 +22,10 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-
-def _ceil128(x: int) -> int:
-    return -(-x // 128) * 128
 
 
 def _digest(a: np.ndarray) -> str:
@@ -95,65 +78,6 @@ def make_superframe_design(G: np.ndarray, M: int, S: int | None = None) -> Super
                             gkey=_digest(Gbig), Gbig=Gbig)
 
 
-@dataclass(frozen=True)
-class AlignedDesign:
-    """Lane-aligned geometry for the fused Pallas kernel (one (G, M) design).
-
-    Input frames are stored mp-strided (own sm samples then zeros); windows
-    read [gg*mp, gg*mp + mp + Eh) — own frame plus the halo rows of the next
-    frame's storage.  All of mp, Eh, sop are multiples of 128.
-    """
-    S: int
-    M: int
-    L: int
-    W: int
-    sm: int         # S*M input samples per super-frame
-    mp: int         # aligned frame stride = ceil128(sm)
-    so: int         # S*L outputs per super-frame
-    sop: int        # aligned output stride = ceil128(so)
-    Eh: int         # aligned halo width = ceil128(W - M)
-    gkey: str
-    Gp: np.ndarray = field(compare=False, repr=False)  # [mp+Eh, sop] f32
-
-
-def make_aligned_design(G: np.ndarray, M: int,
-                        S: int | None = None) -> AlignedDesign:
-    """Aligned-layout embedding of the polyphase bank for the Pallas kernel.
-
-    S defaults to a small search minimizing padded FLOPs per input sample
-    ((mp + Eh) * sop / sm) subject to the filter matrix fitting VMEM.
-    """
-    L, W = G.shape
-    E = W - M
-
-    def geom(S):
-        sm, so = S * M, S * L
-        return sm, _ceil128(sm), so, _ceil128(so), _ceil128(max(E, 1))
-
-    if S is None:
-        best, best_cost = None, None
-        for cand in range(max(1, -(-E // M), -(-256 // L)), -(-1536 // L) + 1):
-            sm, mp, so, sop, Eh = geom(cand)
-            if (mp + Eh) * sop * 4 > 8 * 2**20:      # Gp must fit VMEM
-                continue
-            cost = (mp + Eh) * sop / sm
-            if best_cost is None or cost < best_cost:
-                best, best_cost = cand, cost
-        if best is None:
-            raise ValueError(f"no VMEM-feasible super-frame for L={L} M={M}")
-        S = best
-    sm, mp, so, sop, Eh = geom(S)
-    assert E <= sm, "halo exceeds one frame: raise S"
-    Gp = np.zeros((mp + Eh, sop), dtype=np.float32)
-    for s in range(S):
-        for w in range(W):
-            r = s * M + w
-            row = r if r < sm else mp + (r - sm)
-            Gp[row, s * L: s * L + L] = G[:, w]
-    return AlignedDesign(S=S, M=M, L=L, W=W, sm=sm, mp=mp, so=so, sop=sop,
-                         Eh=Eh, gkey=_digest(Gp), Gp=Gp)
-
-
 def split_complex_rows(x: jax.Array) -> jax.Array:
     """[B, T] complex64 -> [2B, T] float32 (real rows then imag rows)."""
     return jnp.concatenate([x.real, x.imag], axis=0).astype(jnp.float32)
@@ -185,62 +109,3 @@ def polyphase_fir_xla(xp: jax.Array, d: SuperframeDesign, n_frames: int) -> jax.
     fr = wide[:, :, : d.Wb]                               # [B2, n_sf, Wb]
     y = jnp.einsum("bfw,wn->bfn", fr, jnp.asarray(d.Gbig))
     return y.reshape(B2, n_sf * d.out_per_sf)[:, : n_frames * d.L]
-
-
-@lru_cache(maxsize=None)
-def _pallas_call(d: AlignedDesign, B2: int, n_sf: int, TB: int, TG: int,
-                 interpret: bool):
-    from jax.experimental import pallas as pl
-
-    mp, sop, Eh = d.mp, d.sop, d.Eh
-    Gp = jnp.asarray(d.Gp)
-    nb, ng = B2 // TB, n_sf // TG
-
-    def kernel(xm_ref, xh_ref, g_ref, o_ref):
-        # all lane offsets/widths are multiples of 128 by construction
-        xseg = jnp.concatenate([xm_ref[:], xh_ref[:]], axis=-1)
-        g = g_ref[:]
-        for gg in range(TG):
-            fr = xseg[:, gg * mp: gg * mp + mp + Eh]
-            o_ref[:, gg * sop: (gg + 1) * sop] = jax.lax.dot_general(
-                fr, g, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-    call = pl.pallas_call(
-        kernel,
-        grid=(nb, ng),
-        in_specs=[
-            pl.BlockSpec((TB, TG * mp), lambda i, j: (i, j)),
-            # halo: the next mp-sized block after this tile (same array)
-            pl.BlockSpec((TB, mp), lambda i, j: (i, (j + 1) * TG)),
-            pl.BlockSpec((mp + Eh, sop), lambda i, j: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((TB, TG * sop), lambda i, j: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((B2, n_sf * sop), jnp.float32),
-        interpret=interpret,
-    )
-    return lambda xm: call(xm, xm, Gp)
-
-
-def polyphase_fir_pallas(xp: jax.Array, d: AlignedDesign, n_frames: int,
-                         interpret: bool = False) -> jax.Array:
-    """Fused kernel path: [B2, n_pad] f32 -> [B2, n_frames*L] f32."""
-    assert isinstance(d, AlignedDesign), "pallas path needs make_aligned_design"
-    xp, n_sf = _pad_for_superframes(xp, d.sm, n_frames, d.S)
-    B2 = xp.shape[0]
-    # aligned frame storage: each super-frame's sm samples padded to mp
-    xr = xp[:, : (n_sf + 1) * d.sm].reshape(B2, n_sf + 1, d.sm)
-    if d.mp > d.sm:
-        xr = jnp.pad(xr, ((0, 0), (0, 0), (0, d.mp - d.sm)))
-    # sublane tiling: rows must tile by a multiple of 8 (or be the full dim)
-    Bp2 = B2 if B2 <= 128 else _ceil128(B2)
-    if Bp2 > B2:
-        xr = jnp.pad(xr, ((0, Bp2 - B2), (0, 0), (0, 0)))
-    xm = xr.reshape(Bp2, (n_sf + 1) * d.mp)
-    TB = min(Bp2, 128)
-    TG = max(1, min(n_sf, 1024 // d.sop))
-    while n_sf % TG:
-        TG -= 1
-    y = _pallas_call(d, Bp2, n_sf, TB, TG, interpret)(xm)    # [Bp2, n_sf*sop]
-    y = y.reshape(Bp2, n_sf, d.sop)[:B2, :, : d.so]
-    return y.reshape(B2, n_sf * d.so)[:, : n_frames * d.L]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from fractions import Fraction
-from functools import lru_cache, partial
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
@@ -102,34 +102,19 @@ def _sf_design(plan: ResamplerPlan):
     return make_superframe_design(G, plan.M)
 
 
-@lru_cache(maxsize=None)
-def _aligned_design(plan: ResamplerPlan):
-    from .ops.polyphase import make_aligned_design
-    G, m0, W = _design(plan)
-    return make_aligned_design(G, plan.M)
+#: "auto" resampler implementation per backend platform: on the GPU the
+#: super-frame matmul ("xla_sf") measured faster than the strided-window
+#: einsum ("gather") at the wall-cell and the streaming shapes (PERF.md,
+#: bring-up findings); elsewhere (the CPU test mesh) "gather".
+AUTO_IMPL = {"gpu": "xla_sf"}
 
 
-def _resolve_impl(impl: str, plan: ResamplerPlan) -> str:
+def _resolve_impl(impl: str) -> str:
     if impl == "auto":
-        from .ops import use_pallas
-        if use_pallas():
-            try:                       # some L/M have no VMEM-feasible tiling
-                _aligned_design(plan)
-                return "pallas"
-            except ValueError:
-                return "xla_sf"
-        return "gather"
+        return AUTO_IMPL.get(jax.default_backend(), "gather")
+    if impl not in ("gather", "xla_sf"):
+        raise ValueError(f"unknown resampler impl {impl!r}")
     return impl
-
-
-def _sf_fir(plan: ResamplerPlan, impl: str):
-    """(design, fir_fn) for the super-frame implementations."""
-    from .ops.polyphase import polyphase_fir_pallas, polyphase_fir_xla
-    if impl == "xla_sf":
-        return _sf_design(plan), polyphase_fir_xla
-    d = _aligned_design(plan)
-    return d, partial(polyphase_fir_pallas,
-                      interpret=(impl == "pallas_interpret"))
 
 
 @lru_cache(maxsize=None)
@@ -140,16 +125,13 @@ def build_resampler(plan: ResamplerPlan, n_in: int, impl: str = "auto"):
     absorbed, reference N_skip_input_samples_front). The tail is flushed
     with zeros (reference resample_final_samples).
 
-    impl: "gather" (strided-window einsum), "xla_sf" (MXU super-frame
-    matmul), "pallas" (fused TPU kernel, ops/polyphase.py),
-    "pallas_interpret" (kernel via the interpreter — CPU-testable), or
-    "auto" (pallas on TPU when the ratio has a feasible tiling, else
-    xla_sf on TPU / gather elsewhere).
+    impl: "gather" (strided-window einsum), "xla_sf" (super-frame
+    matmul, ops/polyphase.py), or "auto" (per platform, AUTO_IMPL).
     """
     L, M = plan.L, plan.M
     if plan.identity:
         return lambda x: x
-    impl = _resolve_impl(impl, plan)
+    impl = _resolve_impl(impl)
     G, m0, W = _design(plan)
     n_out = _out_len(n_in, L, M)
     n_frames = -(-n_out // L)
@@ -157,9 +139,10 @@ def build_resampler(plan: ResamplerPlan, n_in: int, impl: str = "auto"):
     need = (n_frames - 1) * M + m0 + W            # rightmost input index + 1
     pad_r = max(0, need - n_in)
 
-    if impl != "gather":
-        from .ops.polyphase import merge_complex_rows, split_complex_rows
-        d, fir = _sf_fir(plan, impl)
+    if impl == "xla_sf":
+        from .ops.polyphase import (merge_complex_rows, polyphase_fir_xla,
+                                    split_complex_rows)
+        d, fir = _sf_design(plan), polyphase_fir_xla
         off = m0 + pad_l                          # >= 0: frame g starts g*M+off
 
         @jax.jit
@@ -214,16 +197,17 @@ def build_resampler_stream(plan: ResamplerPlan, chunk_in: int, impl: str = "auto
     if plan.identity:
         return (lambda x, hist: (x, hist)), 0
     assert chunk_in % M == 0, "chunk length must be a multiple of M"
-    impl = _resolve_impl(impl, plan)
+    impl = _resolve_impl(impl)
     G, m0, W = _design(plan)
     pad_l = max(0, -m0)
     n_frames = chunk_in // M
     n_out = n_frames * L
     H = pad_l + max(0, (W + m0 - M))              # history carried across chunks
 
-    if impl != "gather":
-        from .ops.polyphase import merge_complex_rows, split_complex_rows
-        d, fir = _sf_fir(plan, impl)
+    if impl == "xla_sf":
+        from .ops.polyphase import (merge_complex_rows, polyphase_fir_xla,
+                                    split_complex_rows)
+        d, fir = _sf_design(plan), polyphase_fir_xla
         off = m0 + pad_l
 
         @jax.jit

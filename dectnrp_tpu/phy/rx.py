@@ -501,7 +501,7 @@ def build_rx(psdef: PacketSizesDef, network_id: int, plcf_type: int,
             "plcf1": a1, "plcf1_ok": ok1, "plcf1_cl": cl1, "plcf1_bf": bf1,
             "plcf2": a2, "plcf2_ok": ok2, "plcf2_cl": cl2, "plcf2_bf": bf2,
             "tb": tb, "tb_ok": tb_ok, "snr_db": snr_db,
-            "h_cells": h_cells,
+            "h_cells": h_cells, "x_pdc": x_pdc,
             "sto_frac": sto_frac.astype(jnp.float32),
             "cfo_res": cfo_res.astype(jnp.float32),
         }

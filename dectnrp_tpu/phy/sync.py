@@ -77,19 +77,8 @@ def _prefix0(x: jax.Array, blk: int = 512) -> jax.Array:
 
     Equivalent to concat([0, cumsum(x)]): in-block cumsums over `blk` lanes
     plus a (T/blk)-length scan of block totals instead of XLA's log-depth
-    lowering of the full T-length cumsum. Measured context-dependent on the
-    chip: STANDALONE the blocked form is slower (sync u8b16 row 13.2 ms vs
-    8.5 ms — the pad/reshape materializations dominate), but inside the
-    FUSED bench step it is the variant that measured >= 1x realtime at the
-    u8b16 batch-128 configuration (1.03x vs 0.53x observed with the plain
-    cumsum at batch 64 after the estimator rework), presumably because the
-    blocked form's elementwise ops fuse into neighbours where the monolithic
-    cumsum kernel cannot. The fused-step number decides: blocked ships.
-
-    r05: the fused Pallas detection kernel (ops/sync_detect.py, 3.5-10x
-    faster) replaced this entire chain on TPU for b >= 8, so the headline
-    numbers no longer rest on this fusion interaction; this path remains
-    the portable fallback (CPU mesh, b < 8 runtime geometries).
+    lowering of the full T-length cumsum. Whether the blocked form beats a
+    plain cumsum on a GPU is for the benchmark's trace to say.
     """
     T = x.shape[-1]
     nb = -(-T // blk)
@@ -104,12 +93,49 @@ def _prefix0(x: jax.Array, blk: int = 512) -> jax.Array:
     return jnp.concatenate([zero, incl], axis=-1)
 
 
+def _detect_xla(x, P: int, w: np.ndarray, n_t: int, norm: float, sl: int,
+                sr: int, params: SyncParams):
+    """STF detection metric over a whole chunk from prefix sums.
+
+    x [B, R, T]: pattern-lag (P) autocorrelation with the +-1 cover weights
+    w [n_pat - 1], window power, their antenna-combined metric, the gate
+    and its (sl, sr) moving average. Returns (sm, metric, metric_g, rms, Cs)
+    over the n_t valid start positions.
+    """
+    R = x.shape[1]
+    n_pat = len(w) + 1
+    # ---- pattern-lag autocorrelation over the whole chunk
+    p = x[..., :-P] * jnp.conj(x[..., P:])                        # [B,R,T-P]
+    Sp = _prefix0(p)
+    C = sum(w[j] * _shift_sum(Sp, j * P, (j + 1) * P, n_t)
+            for j in range(n_pat - 1))                            # [B,R,n_t]
+    pw = jnp.abs(x) ** 2
+    Sw = _prefix0(pw)
+    P2 = _shift_sum(Sw, 0, n_pat * P, n_t)                        # [B,R,n_t]
+
+    # combine antennas before the gates (reference: per-antenna metrics,
+    # antenna-limit option; summing is the batched equivalent)
+    Cs = jnp.sum(C, axis=1)
+    P2s = jnp.sum(P2, axis=1)
+    metric = norm * jnp.abs(Cs) / jnp.maximum(P2s, 1e-20)         # [B,n_t]
+    rms = jnp.sqrt(P2s / (n_pat * P * R))
+
+    gate = (metric > params.metric_threshold) & (metric < params.metric_max)
+    if params.rms_min > 0.0:
+        gate &= (rms > params.rms_min) & (rms < params.rms_max)
+    metric_g = jnp.where(gate, metric, 0.0)
+
+    k = sl + sr + 1
+    Sm = _prefix0(jnp.pad(metric_g, ((0, 0), (sl, sr))))
+    sm = (Sm[..., k:] - Sm[..., :-k]) / k                         # [B,n_t]
+    return sm, metric, metric_g, rms, Cs
+
+
 @lru_cache(maxsize=None)
 def build_sync(u: int, b: int, T: int,
                neff_candidates: tuple[int, ...] = (1, 2, 4, 8),
                params: SyncParams = SyncParams(),
-               max_peaks: int = 1,
-               detect_impl: str = "auto"):
+               max_peaks: int = 1):
     """Returns jitted sync(iq [B, N_RX, T]) -> report dict.
 
     max_peaks=1 (default): one packet per chunk, report fields all [B]:
@@ -122,13 +148,6 @@ def build_sync(u: int, b: int, T: int,
     descending smoothed metric.  After each peak, +-1 STF around it is
     masked before the next argmax (the baton's unique-time filter,
     worker_pool.cpp:299-324, applied inside the kernel).
-
-    detect_impl: "xla" (prefix-sum formulation below), "pallas" /
-    "pallas_interpret" (fused block-local detection kernel,
-    ops/sync_detect.py — one HBM read of the stream, one write of the
-    smoothed metric; metric/CFO/RMS recomputed per peak from O(L)
-    windows), or "auto" (pallas on a real TPU when 16*b % 128 == 0 and no
-    RMS gate is configured, else xla).
     """
     P = 16 * b                           # STF pattern length
     n_pat = n_stf_patterns(u)
@@ -145,74 +164,12 @@ def build_sync(u: int, b: int, T: int,
     sl, sr = params.smooth_left * b, params.smooth_right * b
     norm = n_pat / (n_pat - 1)           # metric -> 1 for ideal periodic STF
 
-    if detect_impl == "auto":
-        from .ops import use_pallas
-        detect_impl = "pallas" if (P % 128 == 0 and params.rms_min <= 0.0
-                                   and use_pallas()) else "xla"
-    use_fused = detect_impl in ("pallas", "pallas_interpret")
-    if use_fused:
-        assert params.rms_min <= 0.0, \
-            "fused detection does not fold the RMS gate into the smoothing"
-
-    def _detect_xla(x, B, R):
-        """Smoothed gated metric + full metric/C/P2 arrays (prefix sums)."""
-        # ---- pattern-lag autocorrelation over the whole chunk
-        p = x[..., :-P] * jnp.conj(x[..., P:])                    # [B,R,T-P]
-        Sp = _prefix0(p)
-        C = sum(w[j] * _shift_sum(Sp, j * P, (j + 1) * P, n_t)
-                for j in range(n_pat - 1))                        # [B,R,n_t]
-        pw = jnp.abs(x) ** 2
-        Sw = _prefix0(pw)
-        P2 = _shift_sum(Sw, 0, n_pat * P, n_t)                    # [B,R,n_t]
-
-        # combine antennas before the gates (reference: per-antenna metrics,
-        # antenna-limit option; summing is the batched equivalent)
-        Cs = jnp.sum(C, axis=1)
-        P2s = jnp.sum(P2, axis=1)
-        metric = norm * jnp.abs(Cs) / jnp.maximum(P2s, 1e-20)     # [B,n_t]
-        rms = jnp.sqrt(P2s / (n_pat * P * R))
-
-        gate = (metric > params.metric_threshold) & (metric < params.metric_max)
-        if params.rms_min > 0.0:
-            gate &= (rms > params.rms_min) & (rms < params.rms_max)
-        metric_g = jnp.where(gate, metric, 0.0)
-
-        k = sl + sr + 1
-        Sm = _prefix0(jnp.pad(metric_g, ((0, 0), (sl, sr))))
-        sm = (Sm[..., k:] - Sm[..., :-k]) / k                     # [B,n_t]
-        return sm, metric, metric_g, rms, Cs
-
-    w_rep = np.repeat(w, P).astype(np.float32)        # [L-P] window weights
-
-    def _peak_vals(x, t_coarse, R):
-        """metric / C / rms recomputed at the K peaks from O(L) windows
-        (the fused kernel only materializes sm; these are B*K tiny
-        windows — O(B*K*L) instead of O(B*T))."""
-        def one(xb, tb):
-            xw = jax.lax.dynamic_slice_in_dim(
-                xb, jnp.clip(tb, 0, T - L), L, -1)                # [R,L]
-            pwin = xw[..., :L - P] * jnp.conj(xw[..., P:])
-            c = jnp.sum(pwin * jnp.asarray(w_rep)[None])
-            p2 = jnp.sum(jnp.abs(xw) ** 2)
-            met = norm * jnp.abs(c) / jnp.maximum(p2, 1e-20)
-            rms1 = jnp.sqrt(p2 / (n_pat * P * R))
-            return c, met, rms1
-        fk = jax.vmap(one, in_axes=(None, 0))                     # over K
-        return jax.vmap(fk)(x, t_coarse)                          # [B,K] each
-
     @jax.jit
     def sync(iq: jax.Array) -> dict:
         B, R = iq.shape[0], iq.shape[1]
         x = iq
-        if use_fused:
-            from .ops.sync_detect import build_sync_sm
-            sm_fn = build_sync_sm(
-                u, b, T, R, tuple(float(v) for v in w),
-                params.metric_threshold, params.metric_max, sl, sr,
-                interpret=(detect_impl == "pallas_interpret"))
-            sm = sm_fn(jnp.real(x), jnp.imag(x))                  # [B,n_t]
-        else:
-            sm, metric, metric_g, rms, Cs = _detect_xla(x, B, R)
+        sm, metric, metric_g, rms, Cs = _detect_xla(
+            x, P, w, n_t, norm, sl, sr, params)
 
         # ---- coarse peaks: K argmax rounds over the smoothed metric with
         # +-1 STF masking between rounds (multi-packet-per-chunk search)
@@ -231,19 +188,13 @@ def build_sync(u: int, b: int, T: int,
         # (sync_param.hpp:118-173): noise rarely sustains the metric over
         # the smoothing window, a real STF plateau (width ~pattern) does
         sm_pk = jnp.take_along_axis(sm, t_coarse, -1)
-        if use_fused:
-            c_pk, peak_metric, peak_rms = _peak_vals(x, t_coarse, R)
-            inst_ok = (peak_metric > params.metric_threshold) \
-                & (peak_metric < params.metric_max)
-            detected = inst_ok & (sm_pk > params.metric_threshold)
-        else:
-            detected = (
-                (jnp.take_along_axis(metric_g, t_coarse, -1)
-                 > params.metric_threshold)
-                & (sm_pk > params.metric_threshold))              # [B,K]
-            peak_metric = jnp.take_along_axis(metric, t_coarse, -1)
-            peak_rms = jnp.take_along_axis(rms, t_coarse, -1)
-            c_pk = jnp.take_along_axis(Cs, t_coarse, -1)          # [B,K]
+        detected = (
+            (jnp.take_along_axis(metric_g, t_coarse, -1)
+             > params.metric_threshold)
+            & (sm_pk > params.metric_threshold))                  # [B,K]
+        peak_metric = jnp.take_along_axis(metric, t_coarse, -1)
+        peak_rms = jnp.take_along_axis(rms, t_coarse, -1)
+        c_pk = jnp.take_along_axis(Cs, t_coarse, -1)              # [B,K]
 
         # ---- fractional CFO from the autocorrelation phase at each peak
         # x[t]*conj(x[t+P]) rotates by -cfo*P under x = s*exp(j*cfo*n)

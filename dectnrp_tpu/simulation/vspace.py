@@ -97,8 +97,7 @@ class VSpace:
 
     def tick(self, tx_spps) -> np.ndarray:
         """tx_spps [N, A, spp] -> rx_spps [N, A, spp] (host complex64);
-        advances global time.  Complex IQ crosses the device boundary as
-        float32 planes (common/cplx.py) so the tick runs on the real TPU."""
+        advances global time."""
         assert tx_spps.shape == (self.N, self.A, self.cfg.spp_len)
         self._update_gains()
         key = jax.random.fold_in(self._key, self.now & 0x7FFFFFFF)
@@ -112,15 +111,14 @@ class VSpace:
 
 
 @lru_cache(maxsize=None)
-def _tick_wrapped(channel_inter: str, samp_rate: float, noise_var: float):
-    from ..common.cplx import cwrap
-    return cwrap(partial(_tick_jit, channel_inter=channel_inter,
-                         samp_rate=samp_rate, noise_var=noise_var))
+def _tick_compiled(channel_inter: str, samp_rate: float, noise_var: float):
+    return jax.jit(partial(_tick_jit, channel_inter=channel_inter,
+                           samp_rate=samp_rate, noise_var=noise_var))
 
 
 def _tick_host(tx, gain, edge_H, key, noise_var, channel_inter, samp_rate):
-    f = _tick_wrapped(channel_inter, float(samp_rate), float(noise_var))
-    return f(tx, gain, edge_H, key)
+    f = _tick_compiled(channel_inter, float(samp_rate), float(noise_var))
+    return np.asarray(f(tx, gain, edge_H, key))
 
 
 def _tick_jit(tx, gain, edge_H, key, *, channel_inter, samp_rate, noise_var):

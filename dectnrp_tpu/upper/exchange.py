@@ -1,46 +1,29 @@
-"""Prove the FULL runtime stack executes on the real TPU chip.
+"""Two-node exchanges through the full runtime stack, for on-card checks.
 
-Round-3 done-criterion (VERDICT.md item 1): a NodeRuntime p2p exchange and a
-PER point must run with platform == "tpu" — not just bench.py.  All complex
-IQ crosses the device boundary as float32 planes (common/cplx.py), so every
-jit in the path (vspace tick, streaming resampler, sync, rx_stream, tx)
-executes on the chip.
-
-Writes results/tpu_runtime/RUNTIME_TPU_<tag>.json with the evidence:
-platform, per-stage counters, and a PER point at 15 dB.
-
-Usage: python tools/run_tpu_runtime_check.py [--tag r03] [--sdr-rate]
+TX firmware -> vspace -> NodeRuntime sync/decode on the receiving node,
+at the DECT rate (SISO) and with 2x2 N_SS=2 spatial multiplexing, plus one
+loopback PER point through the sync path. Each returns its counters and an
+"ok" verdict instead of asserting (tests/test_runtime.py asserts the same
+flows at test size).
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def run_two_node_exchange(sdr_rate: bool, json_export_dir: str | None = None
-                          ) -> dict:
-    """TxBeacon -> vspace -> NodeRuntime sync/decode, 2 nodes.
-
-    Mirrors tests/test_runtime.py but returns counters instead of asserting,
-    and optionally runs the radio at 1.92 Ms/s (SDR rate) so the streaming
-    polyphase front end is in the loop (reference rx_pacer resample path).
-    """
-    from dectnrp_tpu.radio.hw_simulator import HwSimulator, SimDriver
-    from dectnrp_tpu.sections.part3.packet_sizes import (PacketSizesDef,
+def run_two_node_exchange() -> dict:
+    """TxBeacon -> vspace -> NodeRuntime sync/decode, 2 nodes, DECT rate."""
+    from ..radio.hw_simulator import HwSimulator, SimDriver
+    from ..sections.part3.packet_sizes import (PacketSizesDef,
                                                          get_packet_sizes)
-    from dectnrp_tpu.sections.part4.identity import Identity
-    from dectnrp_tpu.sections.part4.plcf import Plcf10
-    from dectnrp_tpu.simulation.topology import Position, Trajectory
-    from dectnrp_tpu.simulation.vspace import VNodeConfig, VSpaceConfig
-    from dectnrp_tpu.upper.runtime import NodeRuntime
-    from dectnrp_tpu.upper.tpoint import (MacHighPhy, MacLowPhy, Tpoint,
+    from ..sections.part4.identity import Identity
+    from ..sections.part4.plcf import Plcf10
+    from ..simulation.topology import Position, Trajectory
+    from ..simulation.vspace import VNodeConfig, VSpaceConfig
+    from .runtime import NodeRuntime
+    from .tpoint import (MacHighPhy, MacLowPhy, Tpoint,
                                           TxDescriptor)
 
     ident = Identity(0x12345678, 0x2222, 0x3333)
@@ -69,8 +52,8 @@ def run_two_node_exchange(sdr_rate: bool, json_export_dir: str | None = None
             # schedule respecting the hardware turnaround: `now` is the
             # MAC's (lagging) clock; with the resampler front end the radio
             # write head is up to pump-chunk + sync-chunk ahead, so a naive
-            # now+margin can land behind the head and lose the burst head
-            # (the r03 2/4 SDR-rate loss). tx_earliest is the guaranteed-
+            # now+margin can land behind the head and lose the burst head.
+            # tx_earliest is the guaranteed-
             # schedulable floor (reference allocation_pt get_tx_opportunity
             # honoring tmin turnaround).
             out.tx_descriptors.append(TxDescriptor(
@@ -101,13 +84,8 @@ def run_two_node_exchange(sdr_rate: bool, json_export_dir: str | None = None
                 self.tb_match += 1
             return MacHighPhy()
 
-    dect_rate = 1_728_000
-    hw_rate = 1_920_000 if sdr_rate else dect_rate
+    hw_rate = 1_728_000
     hws = [HwSimulator(1), HwSimulator(1)]
-    # spp 2048 (vs r04's 512): the steady-state cost is per-dispatch host
-    # RTT, so 4x fewer ticks for the same samples cuts the DECT-rate gate
-    # from 505 s (r04) to well under the 200 s budget (VERDICT r04 item 8)
-    # while keeping the identical delivery gate
     cfg = VSpaceConfig(samp_rate=float(hw_rate), spp_len=2048,
                        noise_var=1e-8)
     nodes = [VNodeConfig(1, Trajectory(Position(0, 0, 0))),
@@ -117,11 +95,8 @@ def run_two_node_exchange(sdr_rate: bool, json_export_dir: str | None = None
     rx_fw.payload_ref = tx_fw.payloads
     rt_tx = NodeRuntime(hws[0], tx_fw, ident.network_id,
                         regular_period=8192, hw_samp_rate=hw_rate)
-    # per-received-packet JSON records on (reference worker_tx_rx.cpp:
-    # 355-415 observability dumps; VERDICT r04 item 5)
     rt_rx = NodeRuntime(hws[1], rx_fw, ident.network_id,
-                        hw_samp_rate=hw_rate,
-                        json_export_dir=json_export_dir)
+                        hw_samp_rate=hw_rate)
     t0 = time.perf_counter()
     ticks = 0
     t_first = None
@@ -141,31 +116,21 @@ def run_two_node_exchange(sdr_rate: bool, json_export_dir: str | None = None
                 and not rt_rx._pending and not rt_rx._pending_pdc:
             break
     wall = time.perf_counter() - t0
-    n_rec = None
-    if rt_rx.json_export is not None:
-        n_rec = rt_rx.json_export.written + len(rt_rx.json_export._buf)
-        rt_rx.json_export.flush()
     return {
         "hw_samp_rate": hw_rate,
-        "resampler_engaged": not rt_rx.plan_tx.identity,
         "tx_sent": tx_fw.sent,
         "pdc_decoded": rx_fw.pdc,
         "tb_payload_match": rx_fw.tb_match,
         "tx_late": rt_tx.stats.tx_late,
         "ticks": ticks,
         "rx_stats": vars(rt_rx.stats),
-        "wall_s": round(wall, 2),
-        "first_tick_s": round(t_first or 0.0, 2),
-        # median separates the true steady tick cost from the one-time
-        # remote-compile spikes (PCC/PDC jits compile lazily at the FIRST
-        # detection, well after tick 1, so a mean over 'post-first-tick'
-        # ticks still counts multi-second compiles as steady state)
-        "steady_ms_per_tick_median": round(
-            float(np.median(tick_ms[1:])) if len(tick_ms) > 1 else 0.0, 1),
-        "tick_ms_max": round(max(tick_ms), 1),
-        "steady_ms_per_tick_mean": round(
-            (wall - (t_first or 0.0)) / max(ticks - 1, 1) * 1e3, 1),
-        "json_records": n_rec,
+        "wall_s": wall,
+        "first_tick_s": t_first or 0.0,
+        # the median separates the steady tick cost from compile spikes
+        # (the PCC/PDC jits compile lazily at the first detection)
+        "tick_ms_median": float(np.median(tick_ms[1:])) if len(tick_ms) > 1
+        else 0.0,
+        "tick_ms_max": max(tick_ms),
         # every sent packet must be delivered and none scheduled late —
         # no warmup allowance needed once TX honors tx_earliest
         "ok": bool(tx_fw.sent >= 4 and rx_fw.tb_match == tx_fw.sent
@@ -178,17 +143,16 @@ def run_mimo_exchange() -> dict:
     TxBeacon (tm mode 2, PLCF type 2 with n_ss=2) -> vspace -> NodeRuntime
     sync (N_eff_TX=2 detection) -> worksub_pcc2pdc derives tm 2 from
     (N_eff_TX, PLCF n_ss) -> MMSE 2-stream PDC decode. The capability the
-    reference stubs (rx_synced.cpp:1331-1333), exercised at system level
-    (VERDICT r04 item 4)."""
-    from dectnrp_tpu.radio.hw_simulator import HwSimulator, SimDriver
-    from dectnrp_tpu.sections.part3.packet_sizes import (PacketSizesDef,
+    reference stubs (rx_synced.cpp:1331-1333), exercised at system level."""
+    from ..radio.hw_simulator import HwSimulator, SimDriver
+    from ..sections.part3.packet_sizes import (PacketSizesDef,
                                                          get_packet_sizes)
-    from dectnrp_tpu.sections.part4.identity import Identity
-    from dectnrp_tpu.sections.part4.plcf import Plcf20
-    from dectnrp_tpu.simulation.topology import Position, Trajectory
-    from dectnrp_tpu.simulation.vspace import VNodeConfig, VSpaceConfig
-    from dectnrp_tpu.upper.runtime import NodeRuntime
-    from dectnrp_tpu.upper.tpoint import (MacHighPhy, MacLowPhy, Tpoint,
+    from ..sections.part4.identity import Identity
+    from ..sections.part4.plcf import Plcf20
+    from ..simulation.topology import Position, Trajectory
+    from ..simulation.vspace import VNodeConfig, VSpaceConfig
+    from .runtime import NodeRuntime
+    from .tpoint import (MacHighPhy, MacLowPhy, Tpoint,
                                           TxDescriptor)
 
     ident = Identity(0x12345678, 0x2222, 0x3333)
@@ -273,17 +237,17 @@ def run_mimo_exchange() -> dict:
         "tb_payload_match": rx_fw.tb_match,
         "n_ss_from_plcf": rx_fw.n_ss_seen,
         "ticks": ticks,
-        "wall_s": round(time.perf_counter() - t0, 2),
+        "wall_s": time.perf_counter() - t0,
         "ok": bool(tx_fw.sent >= 2 and rx_fw.tb_match == tx_fw.sent
                    and rx_fw.n_ss_seen == 2),
     }
 
 
 def run_per_point(snr_db: float = 15.0, n: int = 100) -> dict:
-    """One loopback PER point (sync path) — the oracle sweep on-chip."""
-    from dectnrp_tpu.sections.part3.packet_sizes import PacketSizesDef
-    from dectnrp_tpu.sections.part4.identity import Identity
-    from dectnrp_tpu.upper.loopback import _run_point
+    """One loopback PER point through the sync path."""
+    from ..sections.part3.packet_sizes import PacketSizesDef
+    from ..sections.part4.identity import Identity
+    from .loopback import _run_point
 
     psdef = PacketSizesDef(1, 1, 0, 2, 0, 4, 6144)
     pt = _run_point(psdef, Identity(0x12345678, 0x2222, 0x3333),
@@ -291,38 +255,3 @@ def run_per_point(snr_db: float = 15.0, n: int = 100) -> dict:
     return {"snr_db": snr_db, "n": pt.n, "per_pdc": pt.per_pdc,
             "per_pcc": pt.per_pcc, "snr_est_min": pt.snr_min,
             "snr_est_max": pt.snr_max, "ok": bool(pt.per_pdc <= 0.05)}
-
-
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tag", default="r03")
-    ap.add_argument("--sdr-rate", action="store_true",
-                    help="radio at 1.92 Ms/s: resampler front end in loop")
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-
-    import jax
-    platform = jax.devices()[0].platform
-
-    rec = {"platform": platform, "tag": args.tag}
-    t0 = time.perf_counter()
-    exp_dir = f"results/tpu_runtime/packets_{args.tag}"
-    rec["p2p_dect_rate"] = run_two_node_exchange(
-        sdr_rate=False, json_export_dir=exp_dir)
-    if args.sdr_rate:
-        rec["p2p_sdr_rate"] = run_two_node_exchange(sdr_rate=True)
-    rec["p2p_mimo_nss2"] = run_mimo_exchange()
-    rec["per_point_15db"] = run_per_point()
-    rec["total_wall_s"] = round(time.perf_counter() - t0, 1)
-    rec["ok"] = all(v.get("ok") for k, v in rec.items()
-                    if isinstance(v, dict))
-
-    out = args.out or f"results/tpu_runtime/RUNTIME_TPU_{args.tag}.json"
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out, "w") as f:
-        json.dump(rec, f, indent=1)
-    print(json.dumps({"platform": platform, "ok": rec["ok"], "out": out}))
-
-
-if __name__ == "__main__":
-    main()

@@ -20,7 +20,6 @@ from functools import lru_cache
 
 import numpy as np
 
-from ..common.cplx import cwrap_cached as _cw
 from ..phy.resampler import (ResamplerPlan, build_resampler,
                              build_resampler_stream, get_resampler_fraction,
                              stream_input_lag)
@@ -138,7 +137,6 @@ class NodeRuntime:
         self.max_peaks = 4
         self._sync = build_sync(u, b, chunk_len + self.overlap,
                                 max_peaks=self.max_peaks)
-        self._sync_h = _cw(self._sync)          # complex-free host boundary
         self._stf_len = get_N_samples_STF(u, b)
         # application layer (reference posts application_report_t jobs into
         # the PHY job queue, README.md:248; here: drained per process())
@@ -165,7 +163,7 @@ class NodeRuntime:
             self._chunk_pump = 512 * L                 # hw samples per step
             step, self._rx_H = build_resampler_stream(
                 self.plan_rx, self._chunk_pump)
-            self._rx_step = _cw(step)
+            self._rx_step = step
             self._d_in = stream_input_lag(self.plan_rx)
             self._hist = None
             self._hw_origin: int | None = None         # hw time of feed start
@@ -264,11 +262,12 @@ class NodeRuntime:
             tb = td.tb_bits if td.tb_bits is not None else \
                 np.zeros(ps.N_TB_bits, np.uint8)
             fl = np.zeros((1,), bool)
-            iq = _cw(tx)(plcf_bits[None],
-                         np.asarray(tb)[None].astype(np.uint8), fl, fl)[0]
+            iq = tx(plcf_bits[None],
+                    np.asarray(tb)[None].astype(np.uint8), fl, fl)[0]
             if not self.plan_tx.identity:
                 rs = build_resampler(self.plan_tx, iq.shape[-1])
-                iq = _cw(rs)(iq)
+                iq = rs(iq)
+            iq = np.asarray(iq)
             t_hw = self._dect_to_hw(td.tx_time)
             if t_hw < self.hw.rx_time_passed:
                 # behind the radio write head: the burst head is lost
@@ -326,8 +325,8 @@ class NodeRuntime:
             return True
         nv = self._noise_var(win)
         rxs = build_rx_stream(ps_min, self.network_id, 1, n_min)
-        out = _cw(rxs)(win[None], np.asarray([0]),
-                       np.asarray([cfo], np.float32), np.float32(nv))
+        out = rxs(win[None], np.asarray([0]),
+                  np.asarray([cfo], np.float32), np.float32(nv))
         plcf_bits, plcf_type = None, 0
         if bool(out["plcf1_ok"][0]):
             plcf_bits, plcf_type = np.asarray(out["plcf1"][0]), 1
@@ -381,8 +380,8 @@ class NodeRuntime:
             return True
         rx2 = build_rx_stream(psdef, maclow.network_id, maclow.plcf_type,
                               ps.N_samples_packet)
-        out2 = _cw(rx2)(win[None], np.asarray([0]),
-                        np.asarray([cfo], np.float32), np.float32(nv))
+        out2 = rx2(win[None], np.asarray([0]),
+                   np.asarray([cfo], np.float32), np.float32(nv))
         ok = bool(out2["tb_ok"][0])
         from ..phy.mimo import reports_from_cells
         mimo = reports_from_cells(np.asarray(out2["h_cells"]))[0]
@@ -476,7 +475,7 @@ class NodeRuntime:
                 self._processed = max(self._processed + self.chunk_len,
                                       self.hw.rx_time)
                 continue
-            rep = self._sync_h(chunk[None])
+            rep = self._sync(chunk[None])
             self.stats.chunks += 1
             det = np.asarray(rep["detected"][0])
             tf = np.asarray(rep["t_fine"][0])

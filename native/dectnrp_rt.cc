@@ -19,7 +19,7 @@
 //   * dq_*   : fixed-capacity lock-protected datagram queue for the
 //              application layer (reference application/queue/queue.hpp).
 //
-// The compute path (FFT, FEC, correlators) lives on the TPU in JAX/Pallas;
+// The compute path (FFT, FEC, correlators) lives on the device in JAX/Pallas;
 // this library only carries host-side real-time plumbing: moving IQ between
 // an SDR/NIC thread and the batching layer that feeds the device, and
 // ordering MAC callbacks. Exposed as a C ABI for ctypes

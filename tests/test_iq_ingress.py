@@ -53,13 +53,12 @@ def _record_file(tmp_path, n_packets=3, snr_db=25.0):
     import jax
     import jax.numpy as jnp
 
-    from dectnrp_tpu.common.cplx import cwrap
     from dectnrp_tpu.phy.resampler import ResamplerPlan, build_resampler
     from dectnrp_tpu.phy.tx import build_tx
     from dectnrp_tpu.radio.hw_iq import write_iq_file
 
     ps = get_packet_sizes(PSDEF)
-    tx = cwrap(build_tx(PSDEF, IDENT.network_id, 1))
+    tx = build_tx(PSDEF, IDENT.network_id, 1)
     rng = np.random.default_rng(5)
     payloads, bursts = [], []
     plcf = Plcf10(packet_length_type=PSDEF.PacketLengthType,
@@ -69,12 +68,12 @@ def _record_file(tmp_path, n_packets=3, snr_db=25.0):
                   transmit_power=7, df_mcs=PSDEF.mcs_index)
     plcf_bits = bytes_to_bits(plcf.pack(), 40)
     fl = np.zeros((1,), bool)
-    up = cwrap(build_resampler(ResamplerPlan(10, 9), ps.N_samples_packet))
+    up = build_resampler(ResamplerPlan(10, 9), ps.N_samples_packet)
     for i in range(n_packets):
         tb = rng.integers(0, 2, ps.N_TB_bits).astype(np.uint8)
         payloads.append(tb)
         iq = tx(plcf_bits[None], tb[None], fl, fl)[0]
-        bursts.append(up(iq))
+        bursts.append(np.asarray(up(iq)))
     n_up = bursts[0].shape[-1]
     gap = 8192
     total = n_packets * (n_up + gap) + 4 * gap
@@ -178,7 +177,6 @@ def test_socket_egress_loopback_decodes(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from dectnrp_tpu.common.cplx import cwrap_cached as _cw
     from dectnrp_tpu.phy.resampler import ResamplerPlan, build_resampler
     from dectnrp_tpu.phy.sync import build_rx_stream, build_sync
     from dectnrp_tpu.phy.tx import build_tx
@@ -187,8 +185,8 @@ def test_socket_egress_loopback_decodes(tmp_path):
 
     rate = 1_920_000
     ps = get_packet_sizes(PSDEF)
-    tx = _cw(build_tx(PSDEF, IDENT.network_id, 1))
-    up = _cw(build_resampler(ResamplerPlan(10, 9), ps.N_samples_packet))
+    tx = build_tx(PSDEF, IDENT.network_id, 1)
+    up = build_resampler(ResamplerPlan(10, 9), ps.N_samples_packet)
     rng = np.random.default_rng(11)
     plcf = Plcf10(packet_length_type=PSDEF.PacketLengthType,
                   packet_length=PSDEF.PacketLength,
@@ -201,18 +199,18 @@ def test_socket_egress_loopback_decodes(tmp_path):
     for i in range(3):
         tb = rng.integers(0, 2, ps.N_TB_bits).astype(np.uint8)
         payloads.append(tb)
-        bursts.append(up(tx(plcf_bits[None], tb[None], fl, fl)[0]))
+        bursts.append(np.asarray(up(tx(plcf_bits[None], tb[None], fl, fl)[0])))
     n_up = bursts[0].shape[-1]
 
     # pre-warm every jit the runtime will need, BEFORE the paced wire runs:
     # compiles are seconds on CPU while the ring holds ~0.5 s
     chunk, overlap = 2048, 4 * 112
-    sync = _cw(build_sync(1, 1, chunk + overlap, max_peaks=4))
+    sync = build_sync(1, 1, chunk + overlap, max_peaks=4)
     sync(np.zeros((1, 1, chunk + overlap), np.complex64))
     ps_min = _min_len_psdef(1, 1, 0)
     n_min = get_packet_sizes(ps_min).N_samples_packet
     for p_, n_ in ((ps_min, n_min), (PSDEF, ps.N_samples_packet)):
-        rxs = _cw(build_rx_stream(p_, IDENT.network_id, 1, n_))
+        rxs = build_rx_stream(p_, IDENT.network_id, 1, n_)
         rxs(np.zeros((1, 1, n_), np.complex64), np.asarray([0]),
             np.asarray([0.0], np.float32), np.float32(1e-3))
 

@@ -87,8 +87,8 @@ def test_psdef_fuzz_tx_synthesis():
 
 @pytest.mark.parametrize("b,mcs,snr", [(12, 4, 20.0), (16, 4, 20.0)])
 def test_wide_beta_loopback_decode(b, mcs, snr):
-    """b=12 / b=16 full aligned loopback decode (VERDICT r2 item 6: the top
-    of the beta axis was never decode-tested)."""
+    """b=12 / b=16 full aligned loopback decode (the top of the beta
+    axis)."""
     psdef = PacketSizesDef(1, b, 0, 4, 0, mcs, 6144)
     ps = get_packet_sizes(psdef)
     assert ps is not None

@@ -3,7 +3,7 @@
 Oracle: reference tfw_loopback_snr (lib/src/upper/loopback/
 tfw_loopback_snr.cpp:34-187) — MCS 1..6 x SNR -2..20 dB x 100 packets, JSON
 per MCS. The committed curves (results/loopback_snr, produced by
-tools/run_loopback_snr.py on the TPU) must show a monotone waterfall, be
+tools/run_loopback_snr.py; meta.json names the platform) must show a monotone waterfall, be
 ordered by MCS, sit at plausible thresholds, and the sync path must cost at
 most ~1-2 dB vs perfectly aligned decoding.
 """
@@ -96,7 +96,7 @@ def test_fading_estimation_gap_vs_genie():
     selectivity-aware frequency-interp policy (selective -> clamped
     linear at mid/high SNR) roughly halved it (r05 sweep, n=500: 3.4x /
     6.4x / 5.7x at 20/24/28 dB). The remaining gap is pilot noise inside
-    fades — fundamental for pilot-only estimation (VERDICT r04 item 3)."""
+    fades — fundamental for pilot-only estimation."""
     dg = _load("fading_genie", 4)
     de = _load("fading_aligned", 4)
     snrs = dg["experiment_range"]["snr_vec"]

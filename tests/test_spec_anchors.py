@@ -1,6 +1,6 @@
 """Golden anchors transcribed from the SPECS, independent of repo code.
 
-VERDICT r04 missing #4: nothing outside this repo validates its bit-level
+Without these, nothing outside this repo validates its bit-level
 conventions (the reference validates against MATLAB + commercial devices,
 README.md:329-337 — impossible in this environment). These anchors are the
 substitute: every constant below is transcribed from the cited standard

@@ -88,8 +88,8 @@ def test_sharded_sync_no_false_alarms():
 
 
 def test_sharded_sync_large_chunk():
-    """chunk=8192 (the SCALING_r04 configuration: window redundancy 5.5%,
-    ICI halo 0.68% at 8 devices) finds packets across shard boundaries just
+    """chunk=8192 (the scaling-tool configuration: window redundancy 5.5%,
+    halo 0.68% at 8 devices) finds packets across shard boundaries just
     like the default 2048 chunk."""
     import jax
     import jax.numpy as jnp

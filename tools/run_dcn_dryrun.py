@@ -15,6 +15,9 @@ Parent mode (default): spawns the two children, collects their reports and
 writes results/dcn/DCN_<tag>.json.
 Child mode (--proc I): runs the distributed program.
 
+The children run on the CPU on purpose (a virtual multi-host mesh), so
+spawning two JAX processes here never puts a second process on a GPU.
+
 Usage: python tools/run_dcn_dryrun.py [--tag r04]
 """
 from __future__ import annotations
@@ -38,6 +41,8 @@ def child(proc_id: int) -> None:
                                f" --xla_force_host_platform_device_count={LOCAL_DEV}")
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from dectnrp_tpu.common.jax_cache import enable_compile_cache
+    enable_compile_cache()
     jax.distributed.initialize(coordinator_address=COORD,
                                num_processes=N_PROC, process_id=proc_id)
     import jax.numpy as jnp
@@ -127,6 +132,8 @@ def main() -> None:
         child(args.proc)
         return
 
+    # CPU-only workers (child() forces jax_platforms=cpu): two JAX
+    # processes never share a GPU
     env = dict(os.environ)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--proc", str(i)],

@@ -80,6 +80,8 @@ def main() -> None:
     ap.add_argument("--out", default="results/fec_awgn")
     args = ap.parse_args()
 
+    from dectnrp_tpu.common.jax_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 

@@ -21,6 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> None:
     out_root = sys.argv[1] if len(sys.argv) > 1 else "results/loopback_snr"
     n = int(sys.argv[2]) if len(sys.argv) > 2 else None
+    from dectnrp_tpu.common.jax_cache import enable_compile_cache
+    enable_compile_cache()
     from dectnrp_tpu.upper.loopback import LoopbackSnrExperiment
 
     variants = (
@@ -31,7 +33,7 @@ def main() -> None:
         # waterfalls shift right + error-floor vs AWGN
         ("fading", dict(use_sync=True, channel="doubly_0_363_222",
                         snr_db=tuple(float(s) for s in range(0, 31, 2)))),
-        # diagnostic pair for the fading floor (VERDICT r03 item 7):
+        # diagnostic pair for the fading floor:
         # estimated-chestim vs TRUE-channel (genie) equalization, both
         # aligned — the gap between the two curves IS the channel-
         # estimation loss; outage would floor the genie curve too

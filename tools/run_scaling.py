@@ -1,4 +1,4 @@
-"""Measure mesh scaling of the sharded runtime paths -> SCALING_r04.json.
+"""Measure mesh scaling of the sharded runtime paths on a virtual CPU mesh.
 
 Two sharded paths (SURVEY par. 2.9 mapping table):
   (a) time-axis sync sharding with ppermute halo exchange
@@ -11,9 +11,10 @@ Run on the virtual CPU mesh (JAX_PLATFORMS=cpu,
 --xla_force_host_platform_device_count=8). NOTE: this host has few physical
 cores, so virtual-device wall clock does NOT demonstrate speedup — the
 numbers recorded are (i) correctness-equivalent sharded execution at every
-mesh size, (ii) the structural communication overhead (halo bytes / chunk
-bytes), which bounds achievable scaling on real ICI, and (iii) the
-single-chip TPU stream throughput from bench.py for the 1-chip anchor.
+mesh size and (ii) the structural communication overhead (halo bytes /
+chunk bytes), which bounds achievable scaling on a real interconnect. It
+forces the CPU on purpose: it is a virtual-mesh tool; the 4-GPU run of the
+same sharded paths is `chip_smoke.py --four-gpus`.
 
 Usage: python tools/run_scaling.py [out.json]
 """
@@ -32,6 +33,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+from dectnrp_tpu.common.jax_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
@@ -48,7 +53,7 @@ def _time(f, *args, iters=5):
 
 
 def main() -> None:
-    out_path = sys.argv[1] if len(sys.argv) > 1 else "SCALING_r04.json"
+    out_path = sys.argv[1] if len(sys.argv) > 1 else "scaling_cpu_mesh.json"
     from dectnrp_tpu.phy.sync_sharded import build_sync_sharded
     from dectnrp_tpu.sections.part3.transmission_packet_structure import \
         get_N_samples_STF
@@ -87,7 +92,7 @@ def main() -> None:
 
     # weak scaling: FIXED work per device (4 chunks/dev); flat ms/stream as
     # devices grow = the honest scaling statement on a virtual mesh.
-    # CONTROL (r05, VERDICT r04 item 7): the same TOTAL work run UNSHARDED
+    # CONTROL: the same TOTAL work run UNSHARDED
     # on ONE device of the same host — on a 2-core box every virtual device
     # timeshares the same cores, so sharded/control separates structural
     # comm+partition overhead (what real chips would pay) from host
@@ -142,28 +147,13 @@ def main() -> None:
                         "sharded_over_control": round(ms / ms_ctl, 3),
                         "nodes_per_dev": N // n_dev})
     res["vspace_sharded_cpu_mesh"] = vs_rows
-    res["real_chip_projection"] = (
+    res["structural_overhead"] = (
         "The halo exchange moves `overlap` samples per shard boundary = "
-        f"{overlap/(4*chunk):.2%} of each shard's bytes at 4 chunks/dev "
-        "(ICI traffic), and each device re-computes overlap/chunk = "
-        f"{overlap/chunk:.1%} extra window samples locally. On real chips "
-        "the per-device compute is constant in a weak sweep, so expected "
-        "weak efficiency = 1 / (1 + halo_compute + ici_time/compute_time); "
-        "with ICI ~100 GB/s/link and the sync chain processing "
-        "~25 GB/s/chip (KERNELS r05 pallas sync row), the halo transfer "
-        "costs ~0.06% of a chunk's compute time -> projected weak-scaling "
-        "efficiency >= 98% against BASELINE.md's >= 80% target. The "
-        "virtual-mesh wall-clock growth in the rows above tracks the "
-        "sharded_over_control ratio ~1 at every size, i.e. it is host-core "
-        "contention, not communication (the control does the same total "
-        "work unsharded on the same 2-core host).")
-
-    # --- single-chip TPU anchor (from the committed bench if present)
-    try:
-        import subprocess
-        res["tpu_single_chip"] = "see BENCH_r04.json (bench.py on real chip)"
-    except Exception:
-        pass
+        f"{overlap/(4*chunk):.2%} of each shard's bytes at 4 chunks/dev, "
+        "and each device re-computes overlap/chunk = "
+        f"{overlap/chunk:.1%} extra window samples locally. The "
+        "virtual-mesh wall clock in the rows above measures host-core "
+        "contention, not communication.")
 
     with open(out_path, "w") as f:
         json.dump(res, f, indent=2)
